@@ -25,7 +25,6 @@ class BenchConfig:
     error_rate: float = 0.05
     # None = the pipeline's auto pow2 ladder (io.packing.auto_length_buckets)
     length_bucket: int | None = None
-    topk_method: str = "exact"  # 'approx' = lax.approx_max_k block selection
     # extra CLI flags appended verbatim (e.g. the human rung's forced
     # --knn-hbm-budget that trips the out-of-core valve, docs/SCALING.md)
     extra_args: tuple = ()
@@ -50,12 +49,11 @@ CONFIGS = {
     "dmel": BenchConfig(
         name="dmel", genome=30_000_000, coverage=30, read_len=15000, k=21,
         sample_fraction=0.005, error_rate=0.01,
-        topk_method="approx",
         models="D. melanogaster HiFi ~30x, k=21 (two-word code path)",
     ),
     "chr1": BenchConfig(
         name="chr1", genome=120_000_000, coverage=30, read_len=10000, k=15,
-        sample_fraction=0.005, topk_method="approx",
+        sample_fraction=0.005,
         models="Human chr1 ONT ~30x (multi-host data-parallel rung)",
     ),
     # The pod-scale streaming rung, scaled to what this host can simulate:
@@ -66,7 +64,7 @@ CONFIGS = {
     # whole-human shape.
     "human": BenchConfig(
         name="human", genome=240_000_000, coverage=30, read_len=10000, k=15,
-        sample_fraction=0.005, topk_method="approx",
+        sample_fraction=0.005,
         extra_args=("--knn-hbm-budget", "2G"),
         models="Whole-human ONT ~30x pod-scale streaming rung "
                "(out-of-core k-NN past a forced 2 GB HBM budget)",

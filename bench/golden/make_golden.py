@@ -88,9 +88,9 @@ def main() -> None:
 
     import numpy as np
 
-    from fedrann_tpu import oracle
-    from fedrann_tpu.io.packing import encode_bases
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax import oracle
+    from fedrann_jax.io.packing import encode_bases
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=120_000, coverage=8,
                          mean_read_length=3000, error_rate=0.03, seed=SEED)

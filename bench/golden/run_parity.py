@@ -8,9 +8,9 @@ import numpy as np
 
 def main(data=None, k_eval=20):
     data = data or os.path.join(HERE, "data")
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.eval import OverlapTable, neighbor_recall
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.eval import OverlapTable, neighbor_recall
     out = tempfile.mkdtemp()
     config = config_from_args([
         "-i", os.path.join(data, "reads.fasta.gz"),

@@ -1,11 +1,10 @@
-"""A/B: exact vs IVF k-NN at the bench rungs (VERDICT r3 item 3a).
+"""A/B: exact vs IVF k-NN at the bench rungs.
 
 Runs the SAME rung input (reusing the rung workdir's fasta + fxcache)
 through the pipeline with --knn-method exact and then ivf at one or more
-probe counts, and records knn-stage seconds, the end-to-end wall, and
-neighbor recall of IVF against the exact table into bench/results.jsonl
-as {"ab": "ivf", ...} rows. The r2 "done" bar: >=5x knn-stage at <=0.5%
-recall loss.
+probe counts, and prints knn-stage seconds, the end-to-end wall, and
+neighbor recall of IVF against the exact table as {"ab": "ivf", ...} JSON
+rows, also appended to bench/_work/ivf_ab.jsonl (not tracked).
 
 Usage: python bench/ivf_ab.py dmel [ecoli ...] [--probes 8,16]
 """
@@ -26,18 +25,15 @@ from configs import CONFIGS  # noqa: E402
 
 
 def _workdir(cfg):
-    work_root = os.environ.get("FEDRANN_BENCH_WORK")
-    if work_root is None:
-        work_root = ("/dev/shm/fedrann_bench" if os.path.isdir("/dev/shm")
-                     else os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                       "_work"))
+    work_root = os.environ.get("FEDRANN_BENCH_WORK") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "_work")
     return os.path.join(work_root, cfg.name.split(":")[0])
 
 
 def run_ab(name: str, probes_list: list[int]) -> list[dict]:
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     cfg = CONFIGS[name]
     tmp = _workdir(cfg)
@@ -58,7 +54,6 @@ def run_ab(name: str, probes_list: list[int]) -> list[dict]:
             "-n", str(cfg.dim),
             "--nndescent-n-neighbors", str(cfg.n_neighbors),
             "--seed", "602", "--length-buckets", cfg.length_buckets_arg(),
-            "--knn-topk-method", cfg.topk_method,
             "--threads", "4", *extra,
         ]
         t0 = time.perf_counter()
@@ -104,9 +99,10 @@ def run_ab(name: str, probes_list: list[int]) -> list[dict]:
         print(json.dumps(row), flush=True)
         # append IMMEDIATELY: a later probe's failure (e.g. OOM at a
         # bigger p) must not lose the rows already measured
-        results_path = os.path.join(
-            os.path.dirname(os.path.abspath(__file__)), "results.jsonl")
-        with open(results_path, "a") as f:
+        results_dir = os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "_work")
+        os.makedirs(results_dir, exist_ok=True)
+        with open(os.path.join(results_dir, "ivf_ab.jsonl"), "a") as f:
             f.write(json.dumps(row) + "\n")
         rows.append(row)
     return rows

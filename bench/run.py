@@ -1,9 +1,9 @@
 """Benchmark ladder runner: python bench/run.py [name ...].
 
-Runs each named config (bench/configs.py) through the device pipeline,
-reports reads/s + stage breakdown + ground-truth recall, and appends a row
-to bench/results.jsonl. The root bench.py remains the driver's single-line
-entry point; this runner is for the full ladder.
+Runs each named config (bench/configs.py) through the device pipeline and
+prints one JSON row per config: reads/s, stage breakdown and ground-truth
+recall. The root bench.py prints the single-line throughput metric; this
+runner is for the full ladder.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import sys
 import tempfile
 import time
 
-# repo root for fedrann_tpu; bench/ itself for configs (the root bench.py
+# repo root for fedrann_jax; bench/ itself for configs (the root bench.py
 # module shadows the bench/ directory as an import name)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -29,10 +29,10 @@ RECALL_MAX_READS = 400_000
 
 
 def run_one(cfg, warm: bool = True, compute_recall: bool = True) -> dict:
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.eval import truth_recall
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.eval import truth_recall
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     def _sim():
         return simulate_reads(
@@ -48,23 +48,9 @@ def run_one(cfg, warm: bool = True, compute_recall: bool = True) -> dict:
     # (simulate_reads is seed-deterministic, so re-deriving it for truth
     # matches the cached fasta).
     if True:
-        # workdir on tmpfs when available: the root volume sustains ~5 MB/s
-        # (docs/TPU_PLATFORM_NOTES.md "Disk"), so a chr1-scale 3.6 GB fasta
-        # would cost ~12 min per READ pass — the rung would measure the
-        # virtio throttle, not the pipeline. FEDRANN_BENCH_WORK overrides.
-        work_root = os.environ.get("FEDRANN_BENCH_WORK")
-        if work_root is None:
-            # tmpfs only when it can hold the fasta (~genome*coverage bytes)
-            # plus the fxcache (~0.7x) with headroom — on small hosts a
-            # 3.6 GB chr1 fasta in RAM would evict/OOM the run (ADVICE r3)
-            need = int(cfg.genome * cfg.coverage * 2.0)
-            shm_ok = False
-            if os.path.isdir("/dev/shm"):
-                st = os.statvfs("/dev/shm")
-                shm_ok = st.f_bavail * st.f_frsize > need
-            work_root = ("/dev/shm/fedrann_bench" if shm_ok
-                         else os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                           "_work"))
+        # FEDRANN_BENCH_WORK overrides the untracked bench/_work root
+        work_root = os.environ.get("FEDRANN_BENCH_WORK") or os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "_work")
         tmp = os.path.join(work_root, cfg.name.split(":")[0])
         os.makedirs(tmp, exist_ok=True)
         fasta = os.path.join(tmp, "reads.fasta")
@@ -87,7 +73,6 @@ def run_one(cfg, warm: bool = True, compute_recall: bool = True) -> dict:
             "-n", str(cfg.dim),
             "--nndescent-n-neighbors", str(cfg.n_neighbors),
             "--seed", "602", "--length-buckets", cfg.length_buckets_arg(),
-            "--knn-topk-method", cfg.topk_method,
             "--threads", "4",
             *cfg.extra_args,
         ]
@@ -148,8 +133,6 @@ def run_one(cfg, warm: bool = True, compute_recall: bool = True) -> dict:
 def main(argv):
     # "name:k=N" overrides n_neighbors for recall-vs-k curves
     names = argv or ["ci"]
-    out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "results.jsonl")
     import dataclasses as _dc
 
     warm = True
@@ -174,9 +157,7 @@ def main(argv):
         print(f"=== {name}: {cfg.models}", file=sys.stderr)
         row = run_one(cfg, warm=warm, compute_recall=compute_recall)
         row["timestamp"] = time.strftime("%Y-%m-%dT%H:%M:%S")
-        print(json.dumps(row))
-        with open(out_path, "a") as f:
-            f.write(json.dumps(row) + "\n")
+        print(json.dumps(row), flush=True)
     return 0
 
 

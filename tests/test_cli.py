@@ -2,8 +2,8 @@
 
 import pytest
 
-from fedrann_tpu import __version__
-from fedrann_tpu.cli import build_parser, config_from_args, main
+from fedrann_jax import __version__
+from fedrann_jax.cli import build_parser, config_from_args, main
 
 
 def test_version_flag(capsys):

@@ -5,26 +5,26 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fedrann_tpu import oracle
-from fedrann_tpu.io.packing import encode_bases, pack_reads
-from fedrann_tpu.io.fastx import FastxRecord
-from fedrann_tpu.kmers.codec import (
+from fedrann_jax import oracle
+from fedrann_jax.io.packing import encode_bases, pack_reads
+from fedrann_jax.io.fastx import FastxRecord
+from fedrann_jax.kmers.codec import (
     canonical_window_codes,
     splitmix64,
     window_codes,
     words_to_u64,
 )
 from helpers_count import count_canonical_kmers
-from fedrann_tpu.kmers.membership import (
+from fedrann_jax.kmers.membership import (
     library_device_words,
     mirror_hits,
     read_hits,
 )
 from helpers_count import build_library_device
-from fedrann_tpu.knn.topk import knn_exact
-from fedrann_tpu.project.embed import embed_hits
-from fedrann_tpu.project.srp import build_precompute, icf_weights_device
-from fedrann_tpu.sim import simulate_reads
+from fedrann_jax.knn.topk import knn_exact
+from fedrann_jax.project.embed import embed_hits
+from fedrann_jax.project.srp import build_precompute, icf_weights_device
+from fedrann_jax.sim import simulate_reads
 
 
 def _random_bases(rng, r, l, n_frac=0.01):
@@ -261,7 +261,7 @@ def test_knn_bf16_close_to_fp32():
 @pytest.mark.parametrize("k", [13, 21])
 def test_read_hits_indexed_matches_plain(k):
     """Prefix-table fast path must agree exactly with the plain search."""
-    from fedrann_tpu.kmers.membership import build_library_index
+    from fedrann_jax.kmers.membership import build_library_index
 
     sim = simulate_reads(genome_length=6000, coverage=5, mean_read_length=800,
                          seed=8)
@@ -283,7 +283,7 @@ def test_read_hits_indexed_matches_plain(k):
 
 def test_embed_hits_pair_matches_mirror_path():
     """swap_halves + shared gather must equal mirror_hits + second embed."""
-    from fedrann_tpu.project.embed import embed_hits_pair, swap_halves
+    from fedrann_jax.project.embed import embed_hits_pair, swap_halves
 
     rng = np.random.default_rng(20)
     lib_size, d = 50, 16
@@ -308,7 +308,7 @@ def test_embed_hits_pair_matches_mirror_path():
 def test_build_precompute_paired_matches_flat():
     """Paired layout (L+1, 2d) must hold bitwise the same entries as the
     flat (2L+1, d) table: row j = [P[j] | P[j+L]], row L = zeros."""
-    from fedrann_tpu.project.srp import (
+    from fedrann_jax.project.srp import (
         build_precompute_paired,
         pair_projection,
     )
@@ -341,8 +341,8 @@ def test_embed_hits_paired_matches_mirror_path():
     """One 2d-wide gather + half-roll select must equal mirror_hits + a
     second embed pass over the flat table, including rev-feature hits
     (f >= L) and sentinel padding."""
-    from fedrann_tpu.project.embed import embed_hits_paired
-    from fedrann_tpu.project.srp import pair_projection
+    from fedrann_jax.project.embed import embed_hits_paired
+    from fedrann_jax.project.srp import pair_projection
 
     rng = np.random.default_rng(21)
     lib_size, d = 50, 16
@@ -403,7 +403,7 @@ def test_read_hits_hit_buffer_matches_full():
 def test_read_hits_sampling_prefilter_exact(k):
     """Hash prefilter must be an EXACT optimization when the library was
     sampled with the same (seed, fraction)."""
-    from fedrann_tpu.kmers.membership import build_library_index
+    from fedrann_jax.kmers.membership import build_library_index
 
     sim = simulate_reads(genome_length=8000, coverage=6, mean_read_length=900,
                          seed=14)
@@ -431,7 +431,7 @@ def test_read_hits_sampling_prefilter_exact(k):
 def test_staged_candidates_path_matches_classic(k):
     """stage_candidates + read_hits_staged must equal the classic read_hits
     path exactly (adequately sized buffer)."""
-    from fedrann_tpu.kmers.membership import (
+    from fedrann_jax.kmers.membership import (
         build_library_index, read_hits_staged, stage_candidates,
     )
 
@@ -461,7 +461,7 @@ def test_blocked_selection_matches_full_sort(k):
     stage exactly the same candidate multiset as the full-width sort: same
     sorted planes content, same drop counts (zero at 6-sigma capacity), and
     identical downstream feature rows."""
-    from fedrann_tpu.kmers.membership import (
+    from fedrann_jax.kmers.membership import (
         SELECT_BLOCK,
         build_library_index,
         read_hits_staged,
@@ -510,7 +510,7 @@ def test_distance_u16_transfer_roundtrip():
     import jax.numpy as jnp
     import numpy as np
 
-    from fedrann_tpu.knn.topk import DIST_SCALE, transfer_dist
+    from fedrann_jax.knn.topk import DIST_SCALE, transfer_dist
 
     d = np.linspace(-0.001, 2.0, 4097, dtype=np.float32).reshape(1, -1)
     out = transfer_dist(jnp.asarray(d), "u16")
@@ -525,7 +525,7 @@ def test_canonical_window_codes_packed_matches_unpacked(k):
     """The O(1)-pass packed-stream codec is bitwise-identical to the
     k-step rolling codec on prefix-valid rows (the bucket layout the
     native packer produces — fastxpack.cpp fastx_fill_bucket_packed)."""
-    from fedrann_tpu.kmers.codec import canonical_window_codes_packed
+    from fedrann_jax.kmers.codec import canonical_window_codes_packed
 
     rng = np.random.default_rng(7)
     r, l = 16, 512
@@ -555,7 +555,7 @@ def test_canonical_window_codes_packed_matches_unpacked(k):
 def test_stage_packed_mode_matches_len_mode(k):
     """pipeline._stage_chunk_fused mode='packed' stages the identical
     candidate planes as the unpack-then-roll 'len' mode."""
-    from fedrann_tpu.pipeline import _stage_chunk_fused
+    from fedrann_jax.pipeline import _stage_chunk_fused
 
     rng = np.random.default_rng(11)
     r, l = 16, 512
@@ -586,11 +586,11 @@ def test_sign_packed_projection_matches_dense():
     BITWISE, and embed_hits_paired_signs matches embed_hits_paired to fp
     tolerance (the default --projection-dtype signs path: 8x smaller
     table, exact f32 entries)."""
-    from fedrann_tpu.project.embed import (
+    from fedrann_jax.project.embed import (
         embed_hits_paired,
         embed_hits_paired_signs,
     )
-    from fedrann_tpu.project.srp import (
+    from fedrann_jax.project.srp import (
         build_precompute_paired,
         build_precompute_signs,
     )
@@ -623,7 +623,7 @@ def test_packed_idx_wire_roundtrip(n_rows):
     """The 20/24-bit packed neighbor-index wire (transfer='u16' past the
     uint16 range) is bit-identical to the plain i32 copy, including the
     -1 unset marker (in-band sentinel n_rows)."""
-    from fedrann_tpu.knn.topk import transfer_idx
+    from fedrann_jax.knn.topk import transfer_idx
 
     rng = np.random.default_rng(1)
     idx = rng.integers(-1, n_rows, (257, 50)).astype(np.int32)

@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from fedrann_tpu import oracle
-from fedrann_tpu.compat import load_reference_library, load_reference_precompute
-from fedrann_tpu.eval import OverlapTable, neighbor_recall, truth_recall
+from fedrann_jax import oracle
+from fedrann_jax.compat import load_reference_library, load_reference_precompute
+from fedrann_jax.eval import OverlapTable, neighbor_recall, truth_recall
 
 
 def _write_overlaps(path, rows):
@@ -101,9 +101,9 @@ def test_pipeline_with_imported_library_and_projection(tmp_path):
     + projection must reproduce oracle embeddings built from the same."""
     import scipy.sparse as sp
 
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=8000, coverage=5,
                          mean_read_length=900, seed=53)
@@ -148,9 +148,9 @@ def test_pipeline_with_imported_library_and_projection(tmp_path):
 def test_import_projection_shape_mismatch(tmp_path):
     import scipy.sparse as sp
 
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=5000, coverage=4,
                          mean_read_length=700, seed=54)
@@ -171,9 +171,9 @@ def test_import_library_not_hash_sampled_still_hits(tmp_path):
     """Regression: an imported library sampled by a DIFFERENT process than
     our hash (e.g. the reference's awk rand()) must not be starved by the
     membership sampling prefilter."""
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=8000, coverage=5,
                          mean_read_length=900, seed=55)
@@ -206,7 +206,7 @@ def test_import_library_not_hash_sampled_still_hits(tmp_path):
 
 
 def test_eval_cli(tmp_path, capsys):
-    from fedrann_tpu.eval import main
+    from fedrann_jax.eval import main
 
     t = tmp_path / "a.tsv"
     header = ("query_name\tquery_orientation\ttarget_name\t"

@@ -3,9 +3,9 @@ import gzip
 import numpy as np
 import pytest
 
-from fedrann_tpu.io.fastx import read_fastx, reverse_complement
-from fedrann_tpu.io.packing import INVALID, encode_bases, pack_reads
-from fedrann_tpu.io.fastx import FastxRecord
+from fedrann_jax.io.fastx import read_fastx, reverse_complement
+from fedrann_jax.io.packing import INVALID, encode_bases, pack_reads
+from fedrann_jax.io.fastx import FastxRecord
 
 
 def test_reverse_complement():
@@ -43,7 +43,7 @@ def test_bad_format(tmp_path):
 
 
 def test_auto_length_buckets():
-    from fedrann_tpu.io.packing import auto_length_buckets
+    from fedrann_jax.io.packing import auto_length_buckets
 
     # pow2 classes actually occupied, low-mass classes merged upward
     lengths = [900] * 50 + [1500] * 40 + [3000] * 9 + [250000] * 1
@@ -66,7 +66,7 @@ def test_auto_length_buckets():
 
 
 def test_pack_reads_auto_buckets_roundtrip():
-    from fedrann_tpu.io.packing import auto_length_buckets
+    from fedrann_jax.io.packing import auto_length_buckets
 
     recs = [FastxRecord(f"r{i}", "ACGT" * (200 + 37 * i)) for i in range(10)]
     packed = pack_reads(recs, length_buckets=None)

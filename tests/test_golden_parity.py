@@ -35,19 +35,10 @@ def _data_dir(name):
     return os.path.join(GOLDEN, name)
 
 
-@pytest.fixture(scope="module", params=[
-    pytest.param(
-        name,
-        marks=pytest.mark.skipif(
-            not os.path.exists(os.path.join(GOLDEN, name, "overlaps_ref.tsv")),
-            reason=f"golden artifacts {name} not generated",
-        ),
-    )
-    for name in DATASETS
-])
+@pytest.fixture(scope="module", params=DATASETS)
 def golden_run(request):
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
 
     data = _data_dir(request.param)
     meta_path = os.path.join(data, "meta.json")
@@ -69,7 +60,7 @@ def golden_run(request):
 
 
 def test_neighbor_recall_vs_reference_output(golden_run):
-    from fedrann_tpu.eval import OverlapTable, neighbor_recall
+    from fedrann_jax.eval import OverlapTable, neighbor_recall
 
     _, out, data = golden_run
     ref = OverlapTable.read(os.path.join(data, "overlaps_ref.tsv"))

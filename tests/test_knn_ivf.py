@@ -10,8 +10,8 @@ from the same genome locus share sampled k-mers) recall must be high.
 import numpy as np
 import pytest
 
-from fedrann_tpu.knn.ivf import auto_clusters, knn_ivf
-from fedrann_tpu.knn.topk import knn_exact
+from fedrann_jax.knn.ivf import auto_clusters, knn_ivf
+from fedrann_jax.knn.topk import knn_exact
 
 
 def _clustered_embeddings(n_rows, d, n_centers, rng, spread=0.04):
@@ -96,9 +96,9 @@ def test_auto_clusters_scaling():
 def test_pipeline_ivf_matches_exact_neighbors(tmp_path, transfer):
     """End-to-end: --knn-method ivf produces (near-)identical overlap
     neighbors to the exact pipeline on a small simulated read set."""
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=200_000, coverage=8,
                          mean_read_length=4000, error_rate=0.03, seed=5)

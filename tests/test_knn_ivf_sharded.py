@@ -12,9 +12,9 @@ import jax
 import numpy as np
 import pytest
 
-from fedrann_tpu.knn.ivf import knn_ivf_sharded
-from fedrann_tpu.knn.topk import knn_exact
-from fedrann_tpu.parallel.mesh import make_mesh
+from fedrann_jax.knn.ivf import knn_ivf_sharded
+from fedrann_jax.knn.topk import knn_exact
+from fedrann_jax.parallel.mesh import make_mesh
 
 from test_knn_ivf import _clustered_embeddings
 
@@ -53,9 +53,9 @@ def test_recall_on_real_read_geometry(mesh):
     exact shape (0.7947 at p=8, 0.9071 at p=16, sharded == single-device
     bit-for-bit). The sharded path must add NO approximation beyond the
     IVF itself."""
-    from fedrann_tpu import oracle
-    from fedrann_tpu.knn.ivf import knn_ivf
-    from fedrann_tpu.sim import simulate_reads
+    from fedrann_jax import oracle
+    from fedrann_jax.knn.ivf import knn_ivf
+    from fedrann_jax.sim import simulate_reads
 
     sim = simulate_reads(genome_length=200_000, coverage=8,
                          mean_read_length=2000, error_rate=0.05, seed=5)

@@ -8,8 +8,8 @@ residency changed, so its results must match the in-core search exactly
 import numpy as np
 import pytest
 
-from fedrann_tpu.knn.ooc import knn_exact_ooc, plan_ooc
-from fedrann_tpu.knn.topk import knn_exact
+from fedrann_jax.knn.ooc import knn_exact_ooc, plan_ooc
+from fedrann_jax.knn.topk import knn_exact
 
 
 def _emb(n, d, seed=0):
@@ -71,9 +71,9 @@ def test_ooc_fp32_exact():
 def test_pipeline_ooc_budget_matches_incore(tmp_path):
     """--knn-hbm-budget small enough to trip the valve: embed runs in
     host-output mode, the search streams, overlaps match the in-core run."""
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=120_000, coverage=8,
                          mean_read_length=3000, error_rate=0.03, seed=11)
@@ -107,7 +107,7 @@ def test_pipeline_ooc_budget_matches_incore(tmp_path):
 
 
 def test_parse_bytes():
-    from fedrann_tpu.cli import parse_bytes
+    from fedrann_jax.cli import parse_bytes
 
     assert parse_bytes("8G") == 8 << 30
     assert parse_bytes("512M") == 512 << 20
@@ -123,8 +123,8 @@ def test_ivf_ooc_matches_ivf_recall(transfer):
     SUPERSET of knn_ivf's probed clusters at the same (C, p, spill), so
     its recall vs exact must be >= the in-core IVF's, the self row keeps
     rank 0, and every returned distance is exact."""
-    from fedrann_tpu.knn.ivf import knn_ivf
-    from fedrann_tpu.knn.ooc import knn_ivf_ooc
+    from fedrann_jax.knn.ivf import knn_ivf
+    from fedrann_jax.knn.ooc import knn_ivf_ooc
 
     n, d = 6000, 64
     emb = _emb(n, d, seed=3)
@@ -157,9 +157,9 @@ def test_ivf_ooc_matches_ivf_recall(transfer):
 def test_ivf_ooc_pipeline_valve(tmp_path):
     """--knn-method ivf composes with --knn-hbm-budget end-to-end (the
     warn-and-override branch is gone)."""
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=60000, coverage=8,
                          mean_read_length=1500, error_rate=0.02, seed=11)

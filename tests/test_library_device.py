@@ -4,16 +4,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fedrann_tpu import oracle
-from fedrann_tpu.io.fastx import FastxRecord
-from fedrann_tpu.io.packing import pack_reads
-from fedrann_tpu.kmers.codec import (
+from fedrann_jax import oracle
+from fedrann_jax.io.fastx import FastxRecord
+from fedrann_jax.io.packing import pack_reads
+from fedrann_jax.kmers.codec import (
     canonical_window_codes,
     sample_hash32,
     u64_to_words,
 )
-from fedrann_tpu.kmers.library_device import build_library_on_device
-from fedrann_tpu.sim import simulate_reads
+from fedrann_jax.kmers.library_device import build_library_on_device
+from fedrann_jax.sim import simulate_reads
 
 
 @pytest.mark.parametrize("k", [13, 21])

@@ -6,14 +6,18 @@ import subprocess
 import numpy as np
 import pytest
 
-from fedrann_tpu.io import native
-from fedrann_tpu.io.fastx import read_fastx
-from fedrann_tpu.io.packing import encode_bases, pack_reads
-from fedrann_tpu.sim import simulate_reads, write_fasta
+from fedrann_jax.io import native
+from fedrann_jax.io.fastx import read_fastx
+from fedrann_jax.io.packing import encode_bases, pack_reads
+from fedrann_jax.sim import simulate_reads, write_fasta
 
-pytestmark = pytest.mark.skipif(
-    not native.native_available(), reason="native library not built"
-)
+
+
+@pytest.fixture(autouse=True)
+def native_lib():
+    """The native library is built from source at first use; these tests
+    need it, so a failed build fails them."""
+    assert native.native_available(), "native/fastxpack.cpp did not build"
 
 
 def _check_file(path):
@@ -74,7 +78,7 @@ def test_native_bad_file(tmp_path):
 def test_native_overlaps_writer_matches_python(tmp_path):
     import io as _io
 
-    from fedrann_tpu.io.tsv import write_overlaps_path, write_overlaps_tsv
+    from fedrann_jax.io.tsv import write_overlaps_path, write_overlaps_tsv
 
     rng = np.random.default_rng(70)
     names = [f"read_{i}" for i in range(20)]
@@ -93,7 +97,7 @@ def test_bit_packed_pack_and_unpack_matches():
     """bit_packed parse + device unpack must reproduce the byte matrix."""
     import jax.numpy as jnp
 
-    from fedrann_tpu.kmers.codec import unpack_bases
+    from fedrann_jax.kmers.codec import unpack_bases
 
     sim = simulate_reads(genome_length=15000, coverage=4,
                          mean_read_length=1200, seed=46)
@@ -115,7 +119,7 @@ def test_bit_packed_pack_and_unpack_matches():
 def test_matrix_writer_matches_python(tmp_path):
     import io as _io
 
-    from fedrann_tpu.io.tsv import write_overlaps_path, write_overlaps_tsv
+    from fedrann_jax.io.tsv import write_overlaps_path, write_overlaps_tsv
 
     rng = np.random.default_rng(71)
     names = [f"rd{i}" for i in range(30)]
@@ -136,7 +140,7 @@ def test_matrix_writer_row_offset_chunks_concatenate(tmp_path):
     writers honor row_offset."""
     import io as _io
 
-    from fedrann_tpu.io.tsv import HEADER, write_overlaps_path, write_overlaps_tsv
+    from fedrann_jax.io.tsv import HEADER, write_overlaps_path, write_overlaps_tsv
 
     rng = np.random.default_rng(72)
     names = [f"rd{i}" for i in range(30)]
@@ -183,7 +187,7 @@ def test_threaded_parse_matches_single(tmp_path):
 def test_packed_cache_roundtrip(tmp_path):
     """Cache save/load must reproduce the PackedReads exactly and reject a
     changed input identity."""
-    from fedrann_tpu.io.cache import (
+    from fedrann_jax.io.cache import (
         cache_meta, load_packed_cache, save_packed_cache,
     )
 
@@ -222,8 +226,8 @@ def test_packed_cache_roundtrip(tmp_path):
 def test_pipeline_uses_pack_cache(tmp_path):
     """Second pipeline run must produce identical results from the cache."""
     import os
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.pipeline import run_pipeline
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.pipeline import run_pipeline
 
     sim = simulate_reads(genome_length=15000, coverage=6,
                          mean_read_length=1200, seed=54)
@@ -250,10 +254,10 @@ def test_lengths_unpack_matches_validbits_unpack(tmp_path):
     import numpy as np
     import jax.numpy as jnp
 
-    from fedrann_tpu.io.fastx import FastxRecord
-    from fedrann_tpu.io.native import pack_reads_native
-    from fedrann_tpu.kmers.codec import unpack_bases, unpack_bases_len
-    from fedrann_tpu.sim import simulate_reads
+    from fedrann_jax.io.fastx import FastxRecord
+    from fedrann_jax.io.native import pack_reads_native
+    from fedrann_jax.kmers.codec import unpack_bases, unpack_bases_len
+    from fedrann_jax.sim import simulate_reads
 
     sim = simulate_reads(genome_length=8000, coverage=4,
                          mean_read_length=900, seed=3)
@@ -285,8 +289,8 @@ def test_truncated_gzip_rejected(tmp_path):
 
     import pytest
 
-    from fedrann_tpu.io.native import pack_reads_native
-    from fedrann_tpu.sim import simulate_reads
+    from fedrann_jax.io.native import pack_reads_native
+    from fedrann_jax.sim import simulate_reads
 
     sim = simulate_reads(genome_length=40000, coverage=4,
                          mean_read_length=1500, seed=5)
@@ -307,7 +311,7 @@ def test_malformed_fastq_fails_fast(tmp_path):
     the rest of the file)."""
     import pytest
 
-    from fedrann_tpu.io.native import pack_reads_native
+    from fedrann_jax.io.native import pack_reads_native
 
     bad = str(tmp_path / "bad.fastq")
     with open(bad, "w") as f:

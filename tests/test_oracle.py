@@ -1,9 +1,9 @@
 import numpy as np
 
-from fedrann_tpu import oracle
-from fedrann_tpu.io.fastx import reverse_complement
-from fedrann_tpu.io.packing import encode_bases
-from fedrann_tpu.sim import simulate_reads
+from fedrann_jax import oracle
+from fedrann_jax.io.fastx import reverse_complement
+from fedrann_jax.io.packing import encode_bases
+from fedrann_jax.sim import simulate_reads
 
 
 def test_kmer_code_basic():

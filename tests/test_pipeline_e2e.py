@@ -5,10 +5,10 @@ import os
 import numpy as np
 import pytest
 
-from fedrann_tpu import oracle
-from fedrann_tpu.cli import config_from_args, main
-from fedrann_tpu.pipeline import run_pipeline
-from fedrann_tpu.sim import simulate_reads, write_fasta
+from fedrann_jax import oracle
+from fedrann_jax.cli import config_from_args, main
+from fedrann_jax.pipeline import run_pipeline
+from fedrann_jax.sim import simulate_reads, write_fasta
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +68,7 @@ def test_cli_end_to_end(sim_input, tmp_path):
     assert stages["embed"]["hbm_gb_per_s"] > 0
     assert stages["stage"]["h2d_bytes"] > 0
     # mfu_pct appears only on known accelerators (CPU test mesh: absent)
-    from fedrann_tpu.metrics import device_peaks
+    from fedrann_jax.metrics import device_peaks
 
     assert ("mfu_pct" in stages["knn"]) == (device_peaks() is not None)
 
@@ -124,7 +124,7 @@ def test_checkpoint_rejects_changed_input(sim_input, tmp_path):
     sim2 = simulate_reads(genome_length=20000, coverage=8,
                           mean_read_length=1600, error_rate=0.02, seed=99)
     path2 = str(tmp_path / "other.fasta")
-    from fedrann_tpu.sim import write_fasta as wf
+    from fedrann_jax.sim import write_fasta as wf
     wf(path2, sim2.names, sim2.sequences)
     r2 = run_pipeline(config_from_args(args(path2)))
     lib2 = np.load(os.path.join(out, "checkpoints", "library.npz"))["codes"]
@@ -155,7 +155,7 @@ def test_pipeline_k21_two_word_path(tmp_path):
     sim = simulate_reads(genome_length=12000, coverage=6,
                          mean_read_length=1500, error_rate=0.01, seed=23)
     path = str(tmp_path / "r.fasta")
-    from fedrann_tpu.sim import write_fasta as wf
+    from fedrann_jax.sim import write_fasta as wf
     wf(path, sim.names, sim.sequences)
     config = config_from_args([
         "-i", path, "-o", str(tmp_path / "o21"), "-k", "21",
@@ -173,7 +173,7 @@ def test_pipeline_k21_two_word_path(tmp_path):
     assert np.allclose(result.embeddings, emb_o, rtol=1e-4, atol=1e-4)
     truth = sim.truth_overlaps(min_overlap=600)
     if truth:
-        from fedrann_tpu.eval import truth_recall
+        from fedrann_jax.eval import truth_recall
         assert truth_recall(result.neighbor_indices, truth,
                             len(sim.names)) > 0.7
 
@@ -201,8 +201,8 @@ def test_chunk_size_invariance(tmp_path):
     """--chunk-size (reads per device chunk) must not change results: the
     fused dynamic-slice staging path with many chunks and a partial tail
     chunk produces byte-identical output to the single-chunk run."""
-    from fedrann_tpu.cli import main
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import main
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=15000, coverage=5,
                          mean_read_length=1200, error_rate=0.02, seed=11)
@@ -251,8 +251,8 @@ def test_fastq_gz_input_matches_fasta(tmp_path):
     fastx_io.py)."""
     import gzip
 
-    from fedrann_tpu.cli import main
-    from fedrann_tpu.sim import simulate_reads, write_fasta
+    from fedrann_jax.cli import main
+    from fedrann_jax.sim import simulate_reads, write_fasta
 
     sim = simulate_reads(genome_length=15000, coverage=5,
                          mean_read_length=1200, error_rate=0.02, seed=13)

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from fedrann_tpu import oracle
-from fedrann_tpu.parallel.runtime import (
+from fedrann_jax import oracle
+from fedrann_jax.parallel.runtime import (
     host_read_range,
     merge_library_shards,
     partition_counts_threshold,
 )
-from fedrann_tpu.sim import simulate_reads
+from fedrann_jax.sim import simulate_reads
 
 
 def test_host_read_range_covers_all():
@@ -49,10 +49,10 @@ def test_merge_single_shard_identity():
 
 def test_multihost_driver_single_process_identity(tmp_path):
     """With one process, run_pipeline_multihost must equal run_pipeline."""
-    from fedrann_tpu.cli import config_from_args
-    from fedrann_tpu.parallel.runtime import run_pipeline_multihost
-    from fedrann_tpu.pipeline import run_pipeline
-    from fedrann_tpu.sim import write_fasta
+    from fedrann_jax.cli import config_from_args
+    from fedrann_jax.parallel.runtime import run_pipeline_multihost
+    from fedrann_jax.pipeline import run_pipeline
+    from fedrann_jax.sim import write_fasta
 
     sim = simulate_reads(genome_length=10000, coverage=5,
                          mean_read_length=1000, seed=52)

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fedrann_tpu import oracle
-from fedrann_tpu.io.fastx import FastxRecord
-from fedrann_tpu.io.packing import pack_reads
-from fedrann_tpu.knn.topk import knn_exact
-from fedrann_tpu.parallel.mesh import make_mesh
-from fedrann_tpu.parallel.step import make_sharded_step, shard_step_inputs
-from fedrann_tpu.project.srp import build_precompute_paired
-from fedrann_tpu.sim import simulate_reads
+from fedrann_jax import oracle
+from fedrann_jax.io.fastx import FastxRecord
+from fedrann_jax.io.packing import pack_reads
+from fedrann_jax.knn.topk import knn_exact
+from fedrann_jax.parallel.mesh import make_mesh
+from fedrann_jax.parallel.step import make_sharded_step, shard_step_inputs
+from fedrann_jax.project.srp import build_precompute_paired
+from fedrann_jax.sim import simulate_reads
 
 
 @pytest.mark.parametrize("k,precision,dist_atol,min_agree", [

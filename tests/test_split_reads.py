@@ -12,12 +12,12 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from fedrann_tpu import oracle
-from fedrann_tpu.cli import config_from_args
-from fedrann_tpu.io.fastx import FastxRecord
-from fedrann_tpu.io.packing import pack_reads, segment_spans
-from fedrann_tpu.pipeline import run_pipeline
-from fedrann_tpu.sim import simulate_reads, write_fasta
+from fedrann_jax import oracle
+from fedrann_jax.cli import config_from_args
+from fedrann_jax.io.fastx import FastxRecord
+from fedrann_jax.io.packing import pack_reads, segment_spans
+from fedrann_jax.pipeline import run_pipeline
+from fedrann_jax.sim import simulate_reads, write_fasta
 
 K = 13
 BUCKETS = "2048,16384"
